@@ -4,7 +4,7 @@
 The round-3 aggregates averaged each (codec, config) over whatever files
 that codec happened to be measured on, so a codec measured on a subset of
 the corpus showed a different-file mean — which made a bit-exact codec
-look lossy next to its reference row (VERDICT r3 "What's weak" #5). Here
+look lossy next to its reference row. Here
 every config's aggregate is computed ONLY over the file set common to all
 codecs measured in that config; codecs missing a common-set file are
 dropped from the aggregate (they stay in the per-file CSV). A `files`

@@ -4,7 +4,7 @@ The writer is *vectorized*: callers append (value, nbits) codewords (possibly as
 whole numpy arrays), and the final byte stream is produced in one shot with a
 prefix-sum bit scatter + ``np.packbits``. This replaces the byte-serial staging
 engine of classic codecs (reference parity: libs/bit_stream/include/bit_stream.h)
-with the formulation that also maps onto TPU (codeword-length computation +
+with the formulation that also maps onto the device (codeword-length computation +
 prefix-sum pack).
 
 The reader keeps an explicit bit cursor over an unpacked bit array, with an

@@ -18,7 +18,7 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="srla-tpu",
-        description="SRLA lossless audio codec (TPU-native implementation)")
+        description="SRLA lossless audio codec (JAX implementation)")
     p.add_argument("-e", "--encode", action="store_true", help="Encode mode")
     p.add_argument("-d", "--decode", action="store_true", help="Decode mode")
     p.add_argument("-m", "--mode", type=int, default=4,

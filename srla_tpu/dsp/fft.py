@@ -12,7 +12,7 @@ libs/fft/src/fft.c:71-198). Determinism notes:
   - Complex multiplies are expanded literally as (ar*br - ai*bi, ar*bi + ai*br)
     to avoid any FMA contraction.
 
-On TPU the same structure runs in f32 as a sequence of fused elementwise stages
+On the device the same structure runs in f32 as a sequence of fused elementwise stages
 (fast path); the f64 path here is the bit-exact analysis reference.
 """
 

@@ -3,7 +3,7 @@
 Encode-side prediction is embarrassingly parallel (a batched int32 sliding
 window dot, wrapping mod 2^32 like the reference's int arithmetic); decode-side
 synthesis is a true order-p recurrence, run here as a sample-sequential loop
-vectorized over blocks. The TPU fast paths live in srla_tpu/kernels/.
+vectorized over blocks. The device paths live in srla_tpu/kernels/.
 (Parity: srla_encoder/src/srla_lpc_predict.c:235-294,
  srla_decoder/src/srla_lpc_synthesize.c:237-327.)
 """

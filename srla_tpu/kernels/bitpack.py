@@ -11,9 +11,9 @@ offsets are monotone, so all contributions to a word form a contiguous range:
                                             ranges are disjoint, so sum == or)
 
 with hi/lo found by a vectorized binary search. This replaces the byte-serial
-bit_stream engine of classic codecs with cumsum + searchsorted + gather — all
-TPU-native primitives (BASELINE.json: "vectorized codeword-length computation
-plus prefix-sum bitstream pack").
+bit_stream engine of classic codecs with cumsum + searchsorted + gather —
+vectorized array primitives (BASELINE.json: "vectorized codeword-length
+computation plus prefix-sum bitstream pack").
 """
 
 from __future__ import annotations
@@ -35,9 +35,8 @@ def _plane_sum(word_ids: jnp.ndarray, values: jnp.ndarray, W: int):
     V = word_ids.shape[0]
     buf = jnp.zeros((V, W + 1), jnp.uint32)
     ids = jnp.minimum(word_ids, W)
-    # NOTE: do NOT pass indices_are_sorted=True — the XLA:TPU sorted-scatter
-    # path produces wrong results for batch sizes above ~3k rows (observed on
-    # v5e); the plain scatter is correct at all sizes.
+    # NOTE: do NOT pass indices_are_sorted=True: the indices are not sorted
+    # across rows, and the plain scatter is correct at all sizes.
     buf = buf.at[jnp.arange(V)[:, None], ids].add(values)
     return buf[:, :W]
 
@@ -70,7 +69,7 @@ def _boundary_search(w0: jnp.ndarray, W: int) -> jnp.ndarray:
     """F[:, j] = #entries with w0 < j, for j = 0..W+1 (w0 monotone per row).
 
     Vectorized binary search: ~log2(T) rounds of take_along_axis gathers —
-    no scatters (XLA:TPU scatters serialize; gathers are fast)."""
+    no scatters."""
     V, T = w0.shape
     j = jnp.arange(W + 2, dtype=jnp.int32)[None, :]
     lo = jnp.zeros((V, W + 2), jnp.int32)
@@ -87,9 +86,8 @@ def _boundary_search(w0: jnp.ndarray, W: int) -> jnp.ndarray:
 def _pack_block(offsets, tails, tbits, W: int, G: int = 64, A: int = 64):
     """Scatter-free packer: dense grouped-window packing + prefix combine.
 
-    XLA:TPU scatters serialize (~2 s for the production shapes); this
-    formulation uses only elementwise ops, cumulative sums, and a handful of
-    contiguous gathers (~10x faster on v5e):
+    This formulation uses only elementwise ops, cumulative sums, and a
+    handful of contiguous gathers:
 
       1. Entries are cut into groups of G consecutive codewords. Each group
          densely packs its (<= 2 per entry) word contributions into a 2A-word
@@ -170,8 +168,7 @@ def pack_flat_stream(offsets: jnp.ndarray, tails: jnp.ndarray,
     single (cap_w,) uint32 buffer (grouped-window + prefix combine — the
     _pack_block scheme generalized to absolute offsets, which lets the
     caller pack every row's section at its final position and skip the
-    row-compaction pass; XLA:TPU scatter measured ~70 ns/index = 360 ms at
-    production shapes, vs ~ms for this formulation).
+    row-compaction pass).
 
     offsets: (R, T) absolute bit positions, non-decreasing along the
     FLATTENED (R*T,) order — including masked slots (tbits == 0), whose

@@ -1,4 +1,5 @@
-"""TPU batched decode: scan-based entropy unpack fused with synthesis.
+"""Batched device decode (round 2): scan-based entropy unpack fused with
+synthesis.
 
 Entropy decode is serial per block (self-delimiting codewords), but blocks
 are independent, so the block axis is the vector axis and ONE lax.scan step
@@ -80,8 +81,7 @@ def deemphasis_batch(data: jnp.ndarray, coef: jnp.ndarray, prev: jnp.ndarray,
 _LTP_RING = 512                     # > LTP_MAX_PERIOD + max half-order + 1
 _LTP_RSHIFT = LTP_COEFFICIENT_BITWIDTH - 1
 _MAX_LTP = 3                        # MAX_LTP_ORDER
-# Scan unroll was measured neutral on v5e (the step is gather-latency-bound,
-# not loop-overhead-bound) while inflating compiles ~4x; keep 1.
+# Scan unroll factor (1: the smallest compiled body).
 _UNROLL = 1
 
 

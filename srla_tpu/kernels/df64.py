@@ -1,6 +1,7 @@
-"""Double-float (two-float32) arithmetic for near-f64 analysis on TPU.
+"""Double-float (two-float32) arithmetic for near-f64 analysis on a device.
 
-TPU compute units have no native float64. The bit-exact encode spec, however,
+The device analysis runs in float32 (devices built for machine learning
+have little or no float64 throughput). The bit-exact encode spec, however,
 only needs f64 *decisions* (rounding of quantized coefficients, order argmins,
 Rice-parameter boundaries...) — not f64 values. This module provides ~2^-48
 relative-accuracy arithmetic built from pairs of float32 (hi, lo) with
@@ -13,7 +14,7 @@ All error-free transformations here avoid relying on FMA availability or
 contraction behavior: two_prod uses a mantissa-masking Veltkamp split (each
 factor is reduced to a 12-bit significand, making every partial product exact
 in f32), and two_sum is the branch-free Knuth form (adds/subs only, immune to
-contraction). This keeps results identical across XLA:CPU and XLA:TPU.
+contraction). This keeps results identical across XLA backends.
 
 References: Dekker (1971), Knuth TAOCP v2, Hida/Li/Bailey's QD library
 algorithms (public domain), adapted to f32 pairs.
@@ -36,8 +37,8 @@ def _f32(x):
 
 # -- FP-contraction defense --------------------------------------------------
 #
-# XLA:TPU compiles HLO f32 ops strictly, but XLA:CPU's emitter contracts
-# mul+add into FMA inside fusions (observed on jaxlib 0.9, and neither
+# XLA:CPU's emitter contracts mul+add into FMA inside fusions, and XLA:GPU
+# may do the same (observed on XLA:CPU with jaxlib 0.9, and neither
 # optimization_barrier nor reduce_precision survives to block it). An FMA
 # skips the product's rounding, which breaks every error-free transformation
 # below that consumes a product in an add (s = p + e must see the ROUNDED p).
@@ -275,8 +276,8 @@ def const(v):
 
 
 # ---------------------------------------------------------------------------
-# Natural log: gather-free atanh-series formulation (TPU gathers from even a
-# 128-entry table dominate the cost of a table-based log; this is pure VPU).
+# Natural log: gather-free atanh-series formulation (elementwise only, no
+# table lookup).
 #   x = m * 2^e with m in [sqrt(1/2), sqrt(2));  t = (m-1)/(m+1), |t|<=0.1716;
 #   ln x = e*ln2 + 2t*(1 + t^2/3 + t^4/5 + ... + t^18/19).
 # Accuracy ~1e-13 relative (validated in tests/test_df64.py).

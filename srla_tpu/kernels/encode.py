@@ -1,4 +1,4 @@
-"""TPU fast-path encode analysis (JAX, single jitted program over all blocks).
+"""f32 approx encode analysis (JAX, single jitted program over all blocks).
 
 Design: the block axis is the vector axis. Every stage — pre-emphasis
 statistics, Welch window, FFT autocorrelation, Levinson-Durbin, order

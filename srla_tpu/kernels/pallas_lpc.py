@@ -1,4 +1,5 @@
-"""Pallas TPU kernel: batched LPC synthesis recurrence (+fused de-emphasis).
+"""Pallas kernel (Triton route): batched LPC synthesis recurrence with fused
+de-emphasis.
 
 Device twin of kernels/decode2._lpc_scan — the sequential integer recurrence
 at the heart of block decode (reference:
@@ -10,33 +11,27 @@ libs/srla_decoder/src/srla_lpc_synthesize.c SRLALPC_Synthesize):
               x[s] - pred[s]    (s >= order)
     fused:  out[s] = y[s] + ((out[s-1] * dcoef) >> 4)   (de-emphasis)
 
-The XLA formulation is a lax.scan with one step per SAMPLE (~4 us/step of
-dispatch overhead on v5e — NOTES.md round-3 cost model), so a 4096-sample
-group costs ~16 ms regardless of how little work each step does. Here the
-whole recurrence runs INSIDE one kernel: rows (block*channel) ride the 128
-VPU lanes, the M-tap window lives in the fori_loop carry (a (M, 128) int32
-register tile), and each step is a handful of VPU ops — no per-step dispatch.
-Measured on v5e (tools/pallas_lpc_ab.py, chunked kernel): 5.6-76x over the
-XLA scan at production shapes, bit-exact at all of them.
+XLA runs `_lpc_scan` as a while loop with one trip per sample, and every trip
+is at least one kernel launch on the GPU. Here the whole recurrence runs
+inside one kernel launch. Rows (block x channel) are independent, so each
+program owns a tile of `rows` rows with one row per thread (`rows` = 32 x
+num_warps), and walks the sample axis in an in-kernel loop. The M-tap window
+is a tuple of M (rows,) register vectors in the loop carry: shifting it is a
+renaming of SSA values, not data movement. The coefficients are loaded once
+per program. Residuals are read K samples at a time ahead of the
+recurrence that consumes them, so the load latency is paid once per K
+samples instead of once per sample. The loop body is unrolled over those K
+samples, so K shrinks as M grows to hold the body near 1024 taps: Triton's
+compile time grows with the body (on an H100, M = 256 at K = 16 took
+161 s to compile; see PERF.md).
 
-Layout: the caller transposes residuals to (n, Rp) so the sequential sample
-axis is the sublane axis (dynamic per-step slices on the ROW axis are cheap;
-per-step lane gathers are not). Row tiles of 128 map one grid cell each.
-The sample axis is CHUNKED (grid dim 1, <= _CHUNK samples per step) with the
-recurrence state carried across grid steps in VMEM scratch — one huge
-fori_loop body at n=8192 crashed the remote Mosaic compiler (HTTP 500,
-tools/pallas_lpc_ab.py r5 run) and also pushed the in/out VMEM blocks past
-what pipelining wants; the TPU grid executes sequentially (last dim
-innermost), so scratch carries exactly like the loop carry did.
+Layout: the caller transposes residuals to (n, R) so that the per-sample
+load and store of a row tile are contiguous.
 
-All arithmetic is wrapping int32, identical to the XLA path (including the
+All arithmetic is wrapping int32, identical to the XLA scan (including the
 reference's x86 shift-count quirk: rshift==0 encodes half = INT_MIN,
-emulating C's `1 << (rshift-1)` under shift-count masking — see
-decoder/NOTES bit-exactness playbook).
-
-Status/selection: decode2._use_pallas_lpc routes decode synthesis here by
-default on the TPU backend (SRLA_LPC_IMPL=xla opts out), with a compile-
-failure fallback to the XLA scan in decoder._decode_group_dispatch.
+emulating C's `1 << (rshift-1)` under shift-count masking — see the
+bit-exactness playbook in NOTES.md).
 """
 
 from __future__ import annotations
@@ -45,123 +40,124 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-LANES = 128
-_CHUNK = 2048        # samples per grid step (validated envelope on v5e)
+ROWS = 32            # default row tile: one warp, one row per thread
+_BODY_TAPS = 1024    # bound on K * M, the unrolled multiply-adds per trip
+
+# Rows of the packed per-row parameter block.
+_P_ORDER, _P_RSHIFT, _P_HALF, _P_DCOEF, _P_DPREV = range(5)
+_NPARAM = 8          # padded to a power of two
 
 
-def _make_kernel(chunk: int, M: int, fuse: bool):
-    def kernel(res_ref, al_ref, ord_ref, rsh_ref, half_ref, dcoef_ref,
-               dprev_ref, out_ref, win_sc, y_sc):
-        j = pl.program_id(1)
+def _tree_sum(terms):
+    """Pairwise sum: log-depth dependency chain instead of a linear one."""
+    terms = list(terms)
+    while len(terms) > 1:
+        nxt = [terms[i] + terms[i + 1] for i in range(0, len(terms) - 1, 2)]
+        if len(terms) % 2:
+            nxt.append(terms[-1])
+        terms = nxt
+    return terms[0]
 
-        @pl.when(j == 0)
-        def _init():
-            win_sc[:] = jnp.zeros((M, LANES), jnp.int32)
-            y_sc[:] = dprev_ref[:]
 
-        orders = ord_ref[:]          # (1, LANES) int32
-        rsh = rsh_ref[:]
-        half = half_ref[:]
+def samples_per_trip(M: int) -> int:
+    """K: samples per loop trip (residual prefetch depth), 1..16."""
+    return max(1, min(16, _BODY_TAPS // M))
+
+
+def _make_kernel(nchunks: int, K: int, M: int, fuse: bool):
+    def kernel(res_ref, al_ref, prm_ref, out_ref):
+        al = tuple(al_ref[j] for j in range(M))          # M x (rows,)
+        orders = prm_ref[_P_ORDER]
+        rsh = prm_ref[_P_RSHIFT]
+        half = prm_ref[_P_HALF]
+        dcoef = prm_ref[_P_DCOEF]
         active = orders > 0
-        al = al_ref[:]               # (M, LANES) int32
-        dcoef = dcoef_ref[:]
-        base = j * chunk             # global index of this chunk's sample 0
+        zero = jnp.zeros_like(orders)
 
-        def body(s, carry):
-            win, yprev = carry       # (M, LANES), (1, LANES)
-            x = res_ref[pl.ds(s, 1), :]
-            acc = jnp.sum(win * al, axis=0, keepdims=True) + half
-            pred = acc >> rsh
-            g = base + s
-            nv = jnp.where(g == 0, x,
-                           jnp.where(g < orders, x + win[M - 1:M],
-                                     x - pred))
-            nv = jnp.where(active, nv, x)
-            win = jnp.concatenate([win[1:], nv], axis=0)
-            if fuse:
-                y = nv + ((yprev * dcoef) >> 4)
-                out_ref[pl.ds(s, 1), :] = y
-                return win, y
-            out_ref[pl.ds(s, 1), :] = nv
+        def chunk(c, carry):
+            win, yprev = carry
+            base = c * K
+            xs = [res_ref[base + k] for k in range(K)]
+            for k in range(K):
+                s = base + k
+                x = xs[k]
+                acc = _tree_sum(w * a for w, a in zip(win, al)) + half
+                pred = acc >> rsh
+                nv = jnp.where(s == 0, x,
+                               jnp.where(s < orders, x + win[-1], x - pred))
+                nv = jnp.where(active, nv, x)
+                win = win[1:] + (nv,)
+                if fuse:
+                    yprev = nv + ((yprev * dcoef) >> 4)
+                    out_ref[s] = yprev
+                else:
+                    out_ref[s] = nv
             return win, yprev
 
-        win, y = jax.lax.fori_loop(
-            0, chunk, body, (win_sc[:], y_sc[:]), unroll=False)
-        win_sc[:] = win
-        y_sc[:] = y
+        jax.lax.fori_loop(0, nchunks, chunk,
+                          ((zero,) * M, prm_ref[_P_DPREV]))
 
     return kernel
 
 
-@partial(jax.jit,
-         static_argnames=("chunk", "M", "fuse", "interpret"))
-def _lpc_scan_pallas_T(resT, alT, orders, rshifts, half, dcoef, dprev, *,
-                       chunk: int, M: int, fuse: bool, interpret: bool):
+@partial(jax.jit, static_argnames=("M", "fuse", "rows", "interpret"))
+def _lpc_kernel_T(resT, alT, prm, *, M: int, fuse: bool, rows: int,
+                  interpret: bool):
     npad, Rp = resT.shape
-    grid = (Rp // LANES, npad // chunk)
-    col = lambda i, j: (0, i)        # noqa: E731 — per-row-tile params
-    seq = lambda i, j: (j, i)        # noqa: E731 — sample-chunked data
+    K = samples_per_trip(M)
     return pl.pallas_call(
-        _make_kernel(chunk, M, fuse),
+        _make_kernel(npad // K, K, M, fuse),
         out_shape=jax.ShapeDtypeStruct((npad, Rp), jnp.int32),
-        grid=grid,
+        grid=(Rp // rows,),
         in_specs=[
-            pl.BlockSpec((chunk, LANES), seq, memory_space=pltpu.VMEM),
-            pl.BlockSpec((M, LANES), col, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, LANES), col, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, LANES), col, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, LANES), col, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, LANES), col, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, LANES), col, memory_space=pltpu.VMEM),
+            pl.BlockSpec((npad, rows), lambda i: (0, i)),
+            pl.BlockSpec((M, rows), lambda i: (0, i)),
+            pl.BlockSpec((_NPARAM, rows), lambda i: (0, i)),
         ],
-        out_specs=pl.BlockSpec((chunk, LANES), seq,
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((M, LANES), jnp.int32),
-            pltpu.VMEM((1, LANES), jnp.int32),
-        ],
+        out_specs=pl.BlockSpec((npad, rows), lambda i: (0, i)),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(
+            num_warps=max(rows // 32, 1), num_stages=1),
         interpret=interpret,
-    )(resT, alT, orders, rshifts, half, dcoef, dprev)
+        name="srla_lpc_synthesis",
+    )(resT, alT, prm)
 
 
-def lpc_scan_pallas(res: jnp.ndarray, aligned: jnp.ndarray,
-                    orders: jnp.ndarray, rshifts: jnp.ndarray,
-                    n: int, M: int, dcoef=None, dprev=None,
-                    interpret: bool = False, chunk: int | None = None
-                    ) -> jnp.ndarray:
+def lpc_synthesis(res: jnp.ndarray, aligned: jnp.ndarray,
+                  orders: jnp.ndarray, rshifts: jnp.ndarray,
+                  n: int, M: int, dcoef=None, dprev=None, *,
+                  rows: int = ROWS, interpret: bool = False) -> jnp.ndarray:
     """Drop-in twin of decode2._lpc_scan (same args, same semantics).
 
     res (R, n) int32, aligned (R, M) int32 right-aligned coefficients,
     orders/rshifts (R,) int32; dcoef/dprev fuse the de-emphasis recurrence.
-    Rows are padded to a 128-lane multiple (padded rows have order 0 and
-    pass residuals through); the sample axis is padded to a chunk multiple
-    (padded samples compute garbage past n and are sliced off). `chunk`
-    overrides the sample-chunk size for tests.
+    Rows are padded to a multiple of the row tile (padded rows have order 0
+    and pass residuals through); the sample axis is padded to a multiple of
+    K (padded samples compute values past n that are sliced off). `rows`
+    is a power of two; `interpret` runs the kernel on the CPU for tests.
     """
+    if rows & (rows - 1):
+        raise ValueError(f"row tile must be a power of two, got {rows}")
     R = res.shape[0]
-    Rp = -(-R // LANES) * LANES
+    Rp = -(-R // rows) * rows
+    K = samples_per_trip(M)
+    npad = -(-n // K) * K
     fuse = dcoef is not None
-    if chunk is None:
-        chunk = min(_CHUNK, -(-n // 8) * 8)
-    npad = -(-n // chunk) * chunk
-
-    def padR(a, dtype=jnp.int32):
-        a = jnp.asarray(a, dtype)
-        return jnp.pad(a, [(0, Rp - R)] + [(0, 0)] * (a.ndim - 1))
 
     half = jnp.where(rshifts > 0,
                      jnp.int32(1) << jnp.maximum(rshifts - 1, 0),
                      jnp.int32(-2147483648))
-    resT = jnp.pad(padR(res), ((0, 0), (0, npad - n))).T   # (npad, Rp)
-    alT = padR(aligned).T            # (M, Rp)
-    row2 = lambda a: padR(a).reshape(1, Rp)      # noqa: E731
     z = jnp.zeros((R,), jnp.int32)
-    outT = _lpc_scan_pallas_T(
-        resT, alT, row2(orders), row2(rshifts), row2(half),
-        row2(dcoef if fuse else z), row2(dprev if fuse else z),
-        chunk=chunk, M=M, fuse=fuse, interpret=interpret)
+    prm = jnp.stack([jnp.asarray(v, jnp.int32) for v in (
+        orders, rshifts, half, dcoef if fuse else z,
+        dprev if fuse else z)] + [z] * (_NPARAM - 5))
+    prm = jnp.pad(prm, ((0, 0), (0, Rp - R)))
+    resT = jnp.pad(jnp.asarray(res, jnp.int32),
+                   ((0, Rp - R), (0, npad - n))).T            # (npad, Rp)
+    alT = jnp.pad(jnp.asarray(aligned, jnp.int32), ((0, Rp - R), (0, 0))).T
+    outT = _lpc_kernel_T(resT, alT, prm, M=M, fuse=fuse, rows=rows,
+                         interpret=interpret)
     return outT.T[:R, :n]

@@ -198,9 +198,8 @@ long srla_assemble_blocks(
 }
 
 // Standalone checksum entry point (reference srla_utility.c:36-60) for the
-// host framing path: the vectorized-numpy form costs ~1 ms per block on
-// this single-core host, which at corpus scale is a real slice of encode
-// wall time.
+// host framing path (the vectorized-numpy form is a per-block cost that
+// adds up at corpus scale).
 uint16_t srla_fletcher16(const uint8_t *data, long size) {
     return fletcher16(data, size);
 }

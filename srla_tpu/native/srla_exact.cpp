@@ -1420,9 +1420,8 @@ long srla_emit_payload(
 
 uint16_t srla_fletcher16(const uint8_t *data, long size);  // srla_assemble.cpp
 
-// Emit + frame a whole batch of COMPRESS blocks in one call (the per-block
-// ctypes marshalling of srla_emit_payload measured ~0.15 s per 1292-block
-// host encode — a real slice of the 1.2 s total on this single-core host).
+// Emit + frame a whole batch of COMPRESS blocks in one call (one ctypes
+// crossing per batch instead of one srla_emit_payload call per block).
 // Layouts: method (B,); per-channel params (B, C); coefs (B, C, maxorder);
 // residuals via C per-channel pointers res_ch[c] -> (B, n) int32 (zigzag
 // happens here); rice_ks via C pointers ks_ch[c] -> (B, 1024) int16.

@@ -138,6 +138,7 @@ def decode_corpus_sharded(mesh: Mesh, streams, check_checksum: bool = True,
         _, pcm = dec.decode_whole(virtual)
         if stats_out is not None and "shard_rows" in dec.stats:
             stats_out["shard_rows"] = dec.stats["shard_rows"]
+            stats_out["shard_devices"] = dec.stats["shard_devices"]
         off = 0
         for i in idxs:
             n_i = headers[i].num_samples

@@ -2,7 +2,7 @@
 
 Blocks are self-delimiting and carry all inter-block state in-band, so a
 stream is decodable from any retained block offset — this is what makes both
-the pull-model player and TPU block-parallel decode legal.
+the pull-model player and block-parallel device decode legal.
 (Parity: tools/srla_player/srla_player.c:31-150.)
 """
 

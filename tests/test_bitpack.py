@@ -70,35 +70,8 @@ def test_block_pack_overflow_flagging():
     assert np.asarray(words)[0].astype(">u4").tobytes()[:len(ref)] == ref
 
 
-def test_pallas_pack_interpret_matches_reference():
-    from srla_tpu.kernels.pallas_pack import pallas_pack_rows
-    rng = np.random.RandomState(1)
-    V, T, W = 8, 512, 700
-    tbits = rng.randint(1, 33, size=(V, T)).astype(np.int32)
-    tbits[:, 500:] = 0
-    lead = rng.randint(0, 5, size=(V, T))
-    offs = (np.cumsum(np.where(tbits > 0, tbits + lead, 0), axis=1)
-            - tbits).astype(np.int32)
-    offs = np.maximum(offs, 0)
-    tails = ((rng.randint(0, 2 ** 31, size=(V, T)).astype(np.uint64)
-              & ((1 << np.maximum(tbits, 1).astype(np.uint64)) - 1))
-             | (1 << np.maximum(tbits - 1, 0).astype(np.uint64))
-             ).astype(np.uint32)
-    words = np.asarray(pallas_pack_rows(offs, tails, tbits, W))
-    for v in range(V):
-        bits = np.zeros((W + 700) * 32, dtype=np.uint8)
-        for t in range(T):
-            o, tb, tl = int(offs[v, t]), int(tbits[v, t]), int(tails[v, t])
-            for b in range(tb):
-                bits[o + b] |= (tl >> (tb - 1 - b)) & 1
-        ref = np.array([int.from_bytes(
-            np.packbits(bits[i * 32:(i + 1) * 32]).tobytes(), "big")
-            for i in range(W)], dtype=np.uint64)
-        assert (words[v] == ref.astype(np.uint32)).all()
-
-
 def test_pack_flat_stream_matches_scatter_compaction():
-    """The absolute-offset grouped-window pack (TPU default) must emit the
+    """The absolute-offset grouped-window pack (impl="flat") must emit the
     same compacted flat stream as the per-row scatter pack + row compaction
     it replaced (parity: both are fed the same residual_codewords stream)."""
     import jax.numpy as jnp

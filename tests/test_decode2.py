@@ -31,7 +31,7 @@ def test_sparse_payload_outliers():
 
 
 def test_rolled_and_unrolled_machines_agree():
-    """The fori_loop (CPU) and unrolled (TPU) bit-machine variants must be
+    """The fori_loop (CPU) and unrolled (GPU) bit-machine variants must be
     the same transducer."""
     import jax.numpy as jnp
 

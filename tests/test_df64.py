@@ -2,8 +2,8 @@
 
 These bounds are what the exact-device-encode design leans on: every decision
 margin in kernels/exact.py assumes |df64(value) - f64(value)| is far below the
-flag threshold. Runs on whatever JAX backend is active (CPU in CI; the same
-assertions can be re-run against the real TPU with JAX_PLATFORMS unset).
+flag threshold. Runs on whatever JAX backend is active (CPU in CI;
+chip_smoke.py runs the error-free transforms on the GPU).
 """
 
 import numpy as np

@@ -137,7 +137,7 @@ def test_flag_rate_on_music_like():
 
 
 def test_flat_pack_impl_stream_identical(monkeypatch):
-    """The TPU-default flat pack (absolute-offset grouped-window,
+    """The flat pack (absolute-offset grouped-window,
     kernels/bitpack.py pack_flat_stream) must emit byte-identical streams
     to the scatter pack through the full fused-encode wiring (selection,
     skip rows, raw fallbacks). Small shape: the flat frame loop costs real
@@ -157,9 +157,8 @@ def test_min_group_threshold_is_policy_not_capability(monkeypatch):
     """The device pipeline handles ANY group size: with the row thresholds
     forced to 1, a single-block file must encode AND decode through the
     device path (no host routing) and stay byte-exact vs the exact host
-    stream. The default thresholds only exist because one dispatch+fetch
-    costs 25-500 ms through the remote link vs ~2 ms of host work for a
-    straggler block."""
+    stream. The default thresholds are a latency policy for straggler
+    blocks."""
     import signals
     from srla_tpu import encode
     from srla_tpu.decoder import SRLADecoder

@@ -3,7 +3,7 @@
 The exact device mode (kernels/exact.py) must emit byte-identical streams to
 the exact host backend (itself byte-exact vs the reference binary — see
 test_golden_exact.py), deterministically. Runs on the CPU XLA backend in CI;
-the same code path runs on real TPU hardware in bench.py.
+the same code path runs on the GPU in chip_smoke.py.
 
 A subset of the golden matrix is used (each distinct shape/preset compiles a
 device program; the full matrix lives in test_golden_exact.py).

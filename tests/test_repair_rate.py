@@ -2,7 +2,7 @@
 
 The exact device pipeline re-derives boundary-flagged blocks on the host:
 always byte-exact, but a flag-rate regression would silently turn the
-device path into a glue-cost generator (VERDICT r3). This pins the rate on
+device path into a glue-cost generator. This pins the rate on
 realistic music-like content — including the LTP pitch path, whose margins
 are the widest flag surface — so a margin mis-scale cannot land unnoticed.
 

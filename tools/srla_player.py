@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Pull-model streaming SRLA player.
 
-TPU-native counterpart of the reference player (parity:
+Counterpart of the reference player (parity:
 tools/srla_player/srla_player.c:31-150): the decoder is pulled block by
 block from a callback-style loop, holding only one decoded block of PCM at
 a time, so playback starts immediately and memory stays O(block).
